@@ -1,4 +1,4 @@
-"""slam_robot_tpu — a TPU-native SLAM robot framework in JAX.
+"""slam_robot_tpu — a SLAM robot framework in JAX, run on a GPU.
 
 A from-scratch rebuild of the capabilities of the ywrt/slam-robot C++ stack
 (monocular/alternating-stereo SLAM + Dubins planning + vehicle control) as a
@@ -8,7 +8,7 @@ fixed-capacity, mask-based, struct-of-arrays JAX program:
                 pyramids, patch tracking, corner detection, Gauss-Newton BA)
 - ``models``    stateful-but-functional subsystems (localmap pytree, matcher,
                 slam solver windows, full pipeline step, planner, vehicle, sim)
-- ``parallel``  multi-chip sharding: shard_map bundle adjustment, vmapped
+- ``parallel``  multi-device sharding: shard_map bundle adjustment, vmapped
                 rollout fleets, multi-robot shared maps
 - ``io``        host-side frame sources / recorders (outside the jit boundary)
 - ``utils``     histograms, timers, metrics, checkpointing, debug rendering

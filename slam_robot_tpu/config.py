@@ -7,7 +7,7 @@ matcher.cpp:125-130, seed depth 2000 at matcher.cpp:380, epipolar threshold
 0.0015 at localmap.cpp:260, solve windows (2,5)/(10,20) at main.cpp:580-592,
 error threshold 5 at main.cpp:555, turning radius 2 at planner.cpp:24).
 Here they all live in one frozen dataclass, plus the fixed capacities the
-TPU-native mask-based state layout needs.
+mask-based, fixed-shape state layout needs.
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ class SlamConfig:
     # ---- tracker (hessian.h, matcher.cpp) ----
     tracker_kind: str = "hessian"  # "hessian" | "klt" (FeatureTracker
                                    # typedef seam, matcher.cpp:21)
-    tracker_impl: str = "fused"    # "fused": one Pallas kernel per pyramid
-                                   # level sweep (ops/pallas/newton.py);
+    tracker_impl: str = "fused"    # "fused": one batched Newton sweep per
+                                   # pyramid level (ops/pallas/newton.py);
                                    # "lanes": vmapped per-feature autodiff
                                    # tracker (round-1 path). Same math —
                                    # tests/test_tracker_fused.py pins parity
@@ -40,13 +40,14 @@ class SlamConfig:
     track_max_iters: int = 6       # ref allows 10 with an early break
                                    # (matcher.cpp:176); with projection-
                                    # predicted starts 6 matches the same
-                                   # features (measured) at -30% step time
-                                   # — a batched while runs to the slowest
-                                   # lane, so stragglers bill everyone
+                                   # features (measured) at a lower step
+                                   # time — a batched while runs to the
+                                   # slowest lane, so stragglers bill
+                                   # everyone
     track_iters_coarse: int = 0    # Newton budget at levels > 0 (0 =
                                    # uniform track_max_iters, the
                                    # reference behavior). MEASURED OFF at
-                                   # 4: saved ~1 ms/frame but bench ATE
+                                   # 4: a little faster but bench ATE
                                    # 0.93 -> 2.18%% — a coarse level that
                                    # stops short can hand the fine level
                                    # the wrong basin, and those matches
@@ -63,8 +64,8 @@ class SlamConfig:
     max_corners: int = 120         # goodFeaturesToTrack (matcher.cpp:127).
                                    # The detector pegs this cap on every
                                    # keyframe, and raising it to 200 fixes
-                                   # the hard bench draw (3-seed on-chip
-                                   # median 1.46 -> 0.97 % ATE) — but blows
+                                   # the hard bench draw (3-seed median
+                                   # 1.46 -> 0.97 % ATE) — but blows
                                    # up rotation-heavy scenes 2-8x (low-
                                    # parallax seeds weaken pose constraints;
                                    # capacity-independent). A per-regime
@@ -120,9 +121,9 @@ class SlamConfig:
                                    # (staggered by slot), cutting the
                                    # exploration-time retry ladder ~k-fold;
                                    # recovering features re-match <= k-1
-                                   # frames late. 4 measured 31.2->36.4 fps
-                                   # on the live-exploration bench with
-                                   # BETTER accuracy (ATE 3.3%->1.0%,
+                                   # frames late. 4 measured faster on the
+                                   # live-exploration bench with BETTER
+                                   # accuracy (ATE 3.3%->1.0%,
                                    # tools/profile_scan.py)
 
     roundtrip_levels: int = 0      # backward-consistency cascade cap (0 =
@@ -158,9 +159,10 @@ class SlamConfig:
                                    # decays match counts into a keyframe
                                    # storm (no escalation) or delays
                                    # keyframes the map's accuracy wants
-                                   # (with escalation): 28.3ms/1.5%% ATE
-                                   # ladder vs 34.8/1.0 cycle vs 29.2/4.3
-                                   # cycle+escalation. Ladder stays the
+                                   # (with escalation): ATE 1.5%% ladder
+                                   # vs 1.0 cycle (but slower, a keyframe
+                                   # storm) vs 4.3 cycle+escalation.
+                                   # Ladder stays the
                                    # default; cycle remains for workloads
                                    # with expensive per-sweep costs
     retry_sweeps: int = 1          # extra per-frame attempts in cycle mode
@@ -184,8 +186,8 @@ class SlamConfig:
                                    # view's match locations never change)
                                    # so the backward pass reads its
                                    # windows from a flat table instead of
-                                   # slicing the view pyramid per sweep
-                                   # (~1.5 ms/frame). The cascade can
+                                   # slicing the view pyramid per sweep.
+                                   # The cascade can
                                    # drift past the cached margin for
                                    # already-bad tracks — clamped + masked
                                    # like bwd_ref_from_window.
@@ -194,9 +196,8 @@ class SlamConfig:
                                    # pass's reference patches from the
                                    # forward pass's own search windows
                                    # (pure math) instead of re-extracting
-                                   # them from the new pyramid (~1.4 us
-                                   # per plane-slice row; ~1.6 ms/frame
-                                   # trace-measured). Identical values
+                                   # them from the new pyramid (per-lane
+                                   # plane slices). Identical values
                                    # whenever the patch support lies in
                                    # the forward window — support that
                                    # drifted past the margin is masked
@@ -213,7 +214,7 @@ class SlamConfig:
                                    # staggered) while the shallow passes
                                    # follow find_fail_backoff. 1 =
                                    # reference cadence (tools/parity.py).
-                                   # MEASURED: 8 saved ~0.2 ms but ATE
+                                   # MEASURED: 8 was barely faster but ATE
                                    # 0.9 -> 2.0%% — slower 6-level seed
                                    # recovery starves fresh landmarks;
                                    # 4 (= the shallow cadence) is neutral
@@ -225,9 +226,9 @@ class SlamConfig:
                                    # 16 times across 64 frames (backoff 4)
                                    # has left the field of view; its map
                                    # point stays, only the tracker slot
-                                   # frees. Persistent stragglers were
-                                   # ~2 ms/frame of retry sweeps while
-                                   # exploring (trace-measured)
+                                   # frees. Persistent stragglers were a
+                                   # large share of the retry sweeps while
+                                   # exploring
     retry_escalate_margin: int = 16  # cycle mode: if the cycled retries
                                    # still leave fewer than min_matches +
                                    # margin lanes matched, fall back to
@@ -296,7 +297,7 @@ class SlamConfig:
                                        # only -> 3.00% both-on, vs 1.76%
                                        # all-off), and its cost only
                                        # amortizes 1/slow_every per frame.
-                                       # Re-evaluate on-chip via
+                                       # Re-evaluate on the card via
                                        # profile_scan set: variants.
     ba_free_points_fast: int = 512     # free-landmark slot capacity for the
                                        # fast window's assembly tensors
@@ -361,13 +362,12 @@ class SlamConfig:
                                        # slam.cpp:482-521). The fixed
                                        # policy thrashes on the bench fast
                                        # window (~15 of 20 LM iterations
-                                       # are rejected steps, trace r4);
+                                       # are rejected steps);
                                        # gain-ratio damping removed the
                                        # keyframe storms outright (27 ->
                                        # 9 keyframes on the bench seed)
                                        # and is the single largest ATE
-                                       # lever measured in round 4
-                                       # (PERF.md finding 33)
+                                       # lever measured so far (PERF.md)
     cheirality_eps: float = 0.001      # project.h:27
     window_obs: int = 3072             # obs-table tail slice for window BA
                                        # (20 presented frames x <=120 obs
@@ -461,7 +461,7 @@ class SlamConfig:
     path_types: int = 18               # planner.cpp:25
     interp_step: float = 0.1           # planner_test / onMouse
 
-    # ---- fixed capacities for the SoA state (TPU-native; no ref analog) ----
+    # ---- fixed capacities for the SoA state (fixed shapes; no ref analog) ----
     max_frames: int = 512
     max_points: int = 1024
     max_obs: int = 16384
@@ -478,12 +478,12 @@ class SlamConfig:
 
 
 # The production defaults above deviate from reference tracking semantics
-# where a deviation measured strictly better on the TPU (each knob's
-# docstring carries the numbers). These are the pins that undo every
+# where a deviation measured strictly better on the bench (each knob's
+# comment says how). These are the pins that undo every
 # deviation — matcher.cpp:221-269's exact retry walk, symmetric backward
 # cascade, fresh per-sweep window gathers. tools/parity.py regenerates its
 # golden fixture under these, and reference_exact() keeps the two lists
-# from drifting apart (ADVICE r2).
+# from drifting apart.
 REFERENCE_EXACT_KW = dict(
     find_fail_backoff=1,
     find_fail_backoff_deep=1,

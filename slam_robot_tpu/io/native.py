@@ -2,27 +2,50 @@
 
 Provides the C implementations of the hot host-side paths — YUYV pixel
 conversion, the threaded frame ring buffer, V4L2 capture — with pure-numpy
-fallbacks when the .so hasn't been built (``make -C native``).
+fallbacks when the library cannot be built. The library is not committed:
+:func:`load` builds it from source with ``make -C native`` at first use
+when a compiler is present (or run that command yourself).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
+import subprocess
 
 import numpy as np
 
 _LIB = None
-_SEARCH = (
-    os.path.join(os.path.dirname(__file__), "..", "..", "native", "libslamio.so"),
-    "libslamio.so",
-)
+_NATIVE = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native"))
+_SO = os.path.join(_NATIVE, "libslamio.so")
+_SEARCH = (_SO, "libslamio.so")
+
+
+def _build() -> None:
+    """``make -C native`` if the library is missing or older than its
+    source. A file lock keeps concurrent first users (test workers) from
+    racing on the same output."""
+    src = os.path.join(_NATIVE, "slamio.cpp")
+    if not os.path.exists(src) or shutil.which("make") is None:
+        return
+    import fcntl
+
+    with open(os.path.join(_NATIVE, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (os.path.exists(_SO)
+                and os.path.getmtime(_SO) >= os.path.getmtime(src)):
+            return
+        subprocess.run(["make", "-C", _NATIVE], capture_output=True,
+                       check=False)
 
 
 def load():
     global _LIB
     if _LIB is not None:
         return _LIB
+    _build()
     for p in _SEARCH:
         try:
             lib = ctypes.CDLL(os.path.abspath(p) if os.path.sep in p else p)

@@ -1,6 +1,6 @@
 """The world model: a fixed-capacity, mask-based, struct-of-arrays map state.
 
-This is the TPU-native rebuild of the reference's LocalMap/Frame/TrackedPoint/
+This is the fixed-shape rebuild of the reference's LocalMap/Frame/TrackedPoint/
 Observation object graph (localmap.{h,cpp}). Pointers become integer indices,
 growable vectors become fixed-capacity arrays with fill counters, and every
 mutation is a pure function ``MapState -> MapState`` that jits and vmaps.
@@ -100,7 +100,7 @@ class MapState(NamedTuple):
                               # never-reprojected rows and cheirality-fail
                               # sentinels. Kills the err==px / err==0 value
                               # aliasing mean_obs_error / normalize_canary
-                              # used to rely on (VERDICT r4 item 7)
+                              # used to rely on
     obs_slot: jnp.ndarray     # [O] int32 ring slot this row occupies in its
                               # point's ring (-1 = never appended); lets the
                               # clean disable sync run ring->flat as ONE
@@ -110,8 +110,8 @@ class MapState(NamedTuple):
     point_obs: jnp.ndarray    # [P, R] int32 (ring; slot = total % R)
     point_obs_total: jnp.ndarray  # [P] int32 lifetime obs count per point
     # ring-layout MIRRORS of per-obs fields the maintenance passes read
-    # every frame. A [P,R]-shaped element gather from the obs table costs
-    # ~0.5 ms per field per call site on TPU (trace-measured); these are
+    # every frame. A [P,R]-shaped element gather from the obs table is a
+    # latency-bound gather per field per call site; these are
     # written in ring layout at the same time the obs row is written, so
     # clean/refresh/epipolar read them for free. Invariant (tested):
     # for live slots, ring_frame[p,k] == obs_frame[point_obs[p,k]] and
@@ -412,7 +412,7 @@ def _ring_slots(state: MapState):
     oldest retained observation) computed algebraically from the ring
     counters — the rows are NOT permuted. The age-ordered materialization
     this replaces (take_along_axis over [P,R]) lowered to a 65k-element
-    TPU gather costing ~1.4 ms PER CALL SITE (trace-measured); every
+    gather at every call site; every
     consumer only needs order-aware reductions, which masked min/argmax
     over ``age`` provide on the raw layout for free.
     """
@@ -430,8 +430,8 @@ def _ring_slots(state: MapState):
 def _rows_gather(idx, fields):
     """ONE packed gather of several per-row fields at rows ``idx`` [P,R].
 
-    TPU gathers are latency-bound per row, so k separate [P,R] gathers cost
-    ~k times one packed [P,R,K] gather. Fields are [O] or [O,k]; returns a
+    Row gathers are latency-bound per row, so k separate [P,R] gathers
+    cost ~k times one packed [P,R,K] gather. Fields are [O] or [O,k]; returns a
     list of [P,R(,k)] f32 arrays (cast back by the caller as needed).
     """
     cols = []
@@ -872,8 +872,8 @@ def clean(state: MapState, error_threshold: float = 5.0, cfg: SlamConfig | None 
     to_disable = cand & (errn >= bar)
     any_disabled_pt = jnp.any(to_disable, axis=1)
     all_ok = ~jnp.any(to_disable)
-    # ring->flat disable sync WITHOUT a [P,R]-index scatter (290 us/frame
-    # serialized, trace r3): packed[p,s] names the flat row the ring wants
+    # ring->flat disable sync WITHOUT a [P,R]-index scatter (a serialized
+    # scatter): packed[p,s] names the flat row the ring wants
     # disabled; row o is disabled iff its own ring cell (obs_point[o],
     # obs_slot[o]) names it — ONE [O]-row gather, equivalent row set
     # (rows evicted from a ring can never be named by their old cell).

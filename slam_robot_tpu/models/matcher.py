@@ -16,7 +16,7 @@ match locations) and, per frame (matcher.cpp:301-405):
    TrackedPoints at depth 2000 (matcher.cpp:353-394); the view ring drops
    its oldest entry beyond 4 (matcher.cpp:397-402)
 
-TPU-native shape: feature slots are a fixed-capacity table; views are a
+Fixed-shape layout: feature slots are a fixed-capacity table; views are a
 fixed ring of stored (padded) pyramids; every per-feature decision is a
 mask; the keyframe branch is one lax.cond. View preference order is
 newest-first (deterministic) where the reference iterates a pointer-keyed
@@ -58,8 +58,8 @@ class MatcherState(NamedTuple):
     feat_refpack: jnp.ndarray  # [NF, V, L, 2*S*S+2] f32
     # per-(feature, view, level) search WINDOWS around the stored match —
     # the backward-consistency pass's windows are fixed the moment a view
-    # is stored, so caching them turns its per-sweep plane slices
-    # (~1.4 us/row) into flat-table reads (~free). The refpack patches
+    # is stored, so caching them turns its per-sweep per-lane plane slices
+    # into flat-table reads. The refpack patches
     # are sampled from these at keyframe time (exact: zero drift then)
     feat_refwin: jnp.ndarray   # [NF, V, L, WIN, WIN] f32
     feat_reforg: jnp.ndarray   # [NF, V, L, 2] f32 window origins
@@ -262,8 +262,8 @@ def track(
                 # bucket) or a C-row gather (compacted buckets). COMMON
                 # CASE: every candidate lane picks the SAME view (rank-0
                 # after a keyframe stored them all) — then ONE dynamic
-                # slice replaces the NF-row gather (~0.4 ms, PERF.md
-                # gather economics); only lanes in `cand` are ever read,
+                # slice replaces the NF-row gather; only lanes in `cand`
+                # are ever read,
                 # so non-candidate rows may hold the uniform view's data
                 v0 = vi_lane[jnp.argmax(cand)]
                 uniform = jnp.all(jnp.where(cand, vi_lane, v0) == v0)
@@ -345,8 +345,8 @@ def track(
 
                 if cfg.retry_escalate_margin >= 0:
                     # decaying frame: the one-retry-per-frame budget is
-                    # about to cost a keyframe (2.6ms branch + view-ring
-                    # churn) — run the reference's FULL walk instead,
+                    # about to cost a keyframe (the keyframe branch +
+                    # view-ring churn) — run the reference's FULL walk instead,
                     # ignoring the straggler backoff (a desperate frame
                     # wants every lane). Steady frames skip the cond.
                     esweep = make_sweep(
@@ -423,7 +423,7 @@ def track(
                 )
                 return matched, to_px
     else:
-        # round-1 path (lanes/klt): global newest-first view walk
+        # per-lane trackers (lanes/klt): global newest-first view walk
         order = jnp.argsort(-ms.view_frame)  # newest frames first; -1 last
 
         def make_find_step(start_pred, use_pred):
@@ -577,8 +577,8 @@ def track(
     # small tensors; the multi-MB cache writes (view_pyr, feat_refpack,
     # feat_refwin, feat_reforg — ~63 MB of MatcherState) happen OUTSIDE the
     # cond via OOB-sentinel scatters that drop on non-keyframes. Carrying
-    # them through the cond cost ~2.5 ms/frame of boundary copies
-    # (round-2 trace: data formatting 1.74 + conditional 0.80).
+    # them through the cond costs boundary copies of the whole cache every
+    # frame.
     is_kf = n_matches < cfg.min_matches
     kneed = min(NF, -(-(cfg.min_matches + cfg.max_corners + 32) // 64) * 64)
 
@@ -676,16 +676,16 @@ def track(
         # select the lanes whose caches the view refresh must cover — only
         # lanes stored in this view (matched < min_matches by the keyframe
         # trigger, plus <= max_corners fresh seeds) are ever read from this
-        # slot, so extract just those. Patch extraction is a row gather
-        # (~1.4 us/row, PERF.md); at NF=256 x 6 levels the uncompacted
-        # refresh was ~2 ms per keyframe.
+        # slot, so extract just those. Patch extraction is a per-row
+        # gather, so the uncompacted NF=256 x 6-level refresh bills every
+        # lane.
         if kneed < NF:
             need = feat_valid[:, slot]
             ksel = jnp.argsort(~need)[:kneed]     # needed lanes first
             kmask = need[ksel]
             kpts = feat_px[ksel, slot]
             wdest = jnp.where(kmask, ksel, NF)    # OOB drops
-            # invariant guard (ADVICE r2): a lane stored in the view but
+            # invariant guard: a lane stored in the view but
             # beyond the kneed cache capacity would track against STALE
             # refpack rows — mark it invalid instead (never fires while
             # sum(need) <= min_matches + max_corners, by the keyframe
@@ -706,23 +706,22 @@ def track(
             # gather each needed lane's per-level search windows ONCE; the
             # backward pass reads its windows from this cache on every
             # later frame. The refpack patches are NOT sampled from these
-            # windows (round 2 did, "exact: zero drift") because the
-            # banded-matmul sampling only matches plane extraction to
-            # ~1e-5 — and that fp-level difference in the REFERENCE
-            # patches forked the keyframe cadence chaotically between
-            # cache on/off (15 vs 2 keyframes on the same bench sweep,
-            # PERF.md): within-step the cached windows are bit-identical
-            # to fresh gathers (tools/diag_wincache.py), so the whole
-            # round-2 ATE delta rode this sampling path. Plane-extracting
-            # refpack keeps cache on/off bit-identical end to end.
+            # windows by banded-matmul interpolation, because that only
+            # matches plane extraction to ~1e-5 — and that fp-level
+            # difference in the REFERENCE patches forked the keyframe
+            # cadence chaotically between cache on/off (15 vs 2 keyframes
+            # on the same bench sweep, PERF.md): within-step the cached
+            # windows are bit-identical to fresh gathers
+            # (tools/diag_wincache.py). Plane-exact refpack keeps cache
+            # on/off bit-identical end to end.
             wins, orgs = tracker_fused.get_window_stacks(new_pyr, kpts)
             # refpack support re-read from the windows just gathered at
             # these same kpts: EXACT one-hot selection matmuls + extract's
             # own elementwise bilinear — BIT-IDENTICAL to plane extraction
-            # (pinned in tests/test_tracker_fused.py), unlike the round-2
+            # (pinned in tests/test_tracker_fused.py), unlike
             # banded-interpolation sampling whose ~1e-5 forked the
-            # keyframe cadence (PERF.md finding 15). Kills the largest
-            # round-4 trace op (627 us/frame of per-lane plane slices).
+            # keyframe cadence (PERF.md), and without per-lane plane
+            # slices.
             stacks = tracker_fused.get_patch_stacks_from_windows(
                 new_pyr, kpts, wins, orgs, cfg.patch_size
             )
@@ -768,8 +767,7 @@ def track(
     # wdest = NF) drop everything on non-keyframes, so these are
     # unconditional scatters XLA performs as in-place DUS on the scan
     # carry — instead of the cond-boundary copies that carrying the 63 MB
-    # of caches through the keyframe cond cost (round-2 trace: 1.74 ms
-    # data formatting + 0.80 ms conditional per frame).
+    # of caches through the keyframe cond would cost every frame.
     upd = dict(
         view_pyr=ms.view_pyr.at[kf_slot].set(new_pyr.data, mode="drop"),
         feat_refpack=ms.feat_refpack.at[wdest, kf_slot].set(

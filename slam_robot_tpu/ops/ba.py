@@ -3,7 +3,7 @@
 Replaces the reference's Ceres solve (slam.cpp:257-521: AutoDiff
 ReprojectionError<2,4,3,7,4> blocks with CauchyLoss(range), quaternion local
 parameterization, FrameDistance priors, SPARSE_SCHUR + SCHUR_JACOBI,
-function_tolerance 1e-7) with a TPU-native batched solver:
+function_tolerance 1e-7) with a fixed-shape batched solver:
 
 - residuals & Jacobians: one vmapped ``jax.jacfwd`` over the observation
   table; frame rotations are differentiated in the 3-dof tangent space of
@@ -15,7 +15,7 @@ function_tolerance 1e-7) with a TPU-native batched solver:
 - normal equations are never formed densely over points: landmark blocks
   C_p (4x4) are eliminated in a batched Schur complement; the reduced
   camera system is a dense [6*W (+7*C)] matrix assembled with
-  scatter-adds and one big einsum — MXU food
+  one-hot products and one big einsum
 - free/const structure reproduces SetupProblem exactly: const frames
   contribute residuals but no columns; points are const unless seen from a
   free frame, except uncertainty > 100 keeps them free (slam.cpp:344-354);
@@ -83,9 +83,8 @@ class BAConfig(NamedTuple):
                                   # rho = actual/predicted reduction and
                                   # nu reset to 2; on reject lam *= nu,
                                   # nu *= 2. The fixed policy thrashes on
-                                  # the bench fast window (trace r4: ~15
-                                  # of 20 iterations are rejected steps —
-                                  # only ~4.75 normal-builds/frame)
+                                  # the bench fast window (~15 of 20
+                                  # iterations were rejected steps)
     max_free_frames: int = 16     # reduced-system frame slot capacity
     max_free_points: int = 0      # landmark slot capacity for the per-LM-
                                   # iteration assembly tensors (Cp, bp, A,
@@ -93,7 +92,7 @@ class BAConfig(NamedTuple):
                                   # compaction). A small window touches a
                                   # fraction of the point table, but the
                                   # [P,...] assembly bills all of it every
-                                  # iteration (trace-measured); compacting
+                                  # iteration; compacting
                                   # free points into PW slots shrinks that
                                   # proportionally. Free points beyond the
                                   # capacity stay CONST for the solve
@@ -142,9 +141,8 @@ def _cauchy_weight(s, c):
 def inv4x4(m):
     """Batched closed-form 4x4 inverse via the adjugate.
 
-    jnp.linalg.inv lowers to an LU loop that serializes badly on TPU for
-    [P,4,4] stacks; the cofactor expansion is pure vectorized elementwise
-    math. m: [..., 4, 4].
+    jnp.linalg.inv lowers to a batched LU; the cofactor expansion is pure
+    vectorized elementwise math. m: [..., 4, 4].
     """
     a = m
     # 2x2 sub-determinants of rows 0-1 and rows 2-3 (Laplace on 2x2 blocks)
@@ -358,11 +356,11 @@ def solve(
         jk = jk * use[:, None, None]
         wr = w[:, None] * jnp.where(use[:, None], r, 0.0)
 
-        # Block accumulation via one-hot matmuls, NOT scatter-adds: TPU
-        # scatters are sort-based and serialized; a dozen of them per LM
-        # iteration measured ~8ms/iter while the equivalent dot_generals run
-        # on the MXU in microseconds. one_hot(sentinel) rows are all-zero,
-        # which reproduces mode="drop".
+        # Block accumulation via one-hot matmuls instead of scatter-adds
+        # (a dozen scatters per LM iteration were slow on the accelerator
+        # this was first built for; whether segment sums win on the GPU is
+        # open, ROADMAP C4). one_hot(sentinel) rows are all-zero, which
+        # reproduces mode="drop".
         ohp = jax.nn.one_hot(obs_pc, PW, dtype=jnp.float32)        # [O,PW]
         ohs = jax.nn.one_hot(obs_slot, W + 1, dtype=jnp.float32)[:, :W]  # [O,W]
 
@@ -373,8 +371,7 @@ def solve(
         #   blk[:, :6, 7:] = jf'Wjp   blk[:, 7:, 6] = jp'Wr  (-> -bp)
         #   blk[:, 7:, 7:] = jp'Wjp
         # The unfused form ran 3 outer-product + 2 gradient einsums + 5
-        # one-hot merges per LM iteration — ~2 ms/frame of tiny batched
-        # dots at 19 iters/frame (trace r3); this is 1 outer + 3 merges
+        # one-hot merges per LM iteration; this is 1 outer + 3 merges
         # with identical contractions.
         rm = jnp.where(use[:, None], r, 0.0)
         jaug = jnp.concatenate([jf, rm[:, :, None], jp], axis=-1)  # [O,2,11]
@@ -431,9 +428,8 @@ def solve(
 
         if cfg.solve_cameras:
             # camera columns: coupling with frames and points — one-hot
-            # matmul accumulation like the primary blocks above (scatters
-            # in the LM body are TPU poison, PERF.md; one_hot of an OOB
-            # sentinel is all-zero = mode="drop")
+            # matmul accumulation like the primary blocks above (one_hot
+            # of an OOB sentinel is all-zero = mode="drop")
             ohc = jax.nn.one_hot(c_idx, C, dtype=jnp.float32)      # [O,C]
             blk_kk = jnp.einsum("oia,oib,o->oab", jk, jk, w, precision=_HI)
             Hkk = jnp.einsum("oc,oab->cab", ohc, blk_kk, precision=_HI)

@@ -22,10 +22,10 @@ SCHUR_JACOBI configuration (slam.cpp:488-490):
   SAME solver under shard_map with the 1M-row observation tables (and
   their per-shard gather plans) split over a mesh axis — every obs-derived
   reduction (the [P,4] landmark sums and the reduced [W,6] camera system)
-  psums over ICI, which is exactly the "shard keyframes/landmarks across
+  psums over the mesh axis, which is exactly the "shard keyframes/landmarks across
   devices, all-reduce the Schur-reduced camera system" scale-out of
-  SURVEY §5. The matvec is HBM-bandwidth-bound streaming the obs tables
-  (PERF.md finding 34), i.e. the per-device stream shrinks 1/D while the
+  SURVEY §5. The matvec streams the obs tables (bandwidth-bound by
+  hypothesis, PERF.md), i.e. the per-device stream shrinks 1/D while the
   psums are small ([P,4] + [W,6] per matvec) — the one workload more
   chips genuinely lift.
 
@@ -133,10 +133,12 @@ class CGConfig(NamedTuple):
                                   # gather economics). Rows past K per
                                   # segment spill to a small compacted
                                   # scatter so results stay EXACT.
-                                  # Default by on-chip measurement
-                                  # (tools/profile_cg.py, 10k kf / 500k
-                                  # lm / 1M obs): padded 0.64 GN iters/s
-                                  # vs scatter 0.53 (+21%).
+                                  # Default because it measured faster
+                                  # than scatter at 10k kf / 500k lm /
+                                  # 1M obs (tools/profile_cg.py) on the
+                                  # accelerator this was first built
+                                  # for; re-decide on the GPU (ROADMAP
+                                  # A8).
     pad_obs_per_point: int = 8    # K for the point-side padded table
     pad_obs_per_frame: int = 128  # K for the frame-slot-side padded table
     pad_spill: int = 4096         # compacted spill capacity (rows beyond
@@ -421,7 +423,7 @@ def solve_sharded(
 ) -> BAResult:
     """:func:`solve` with the observation tables sharded over ``obs_axis``
     — the SURVEY §5 large-map scale-out ("shard keyframes across devices
-    … all-reduce the Schur-reduced camera system over ICI").
+    … all-reduce the Schur-reduced camera system").
 
     Layout: frame/point parameters replicate (small: 10k frames = 70 KB,
     500k points = 8 MB); the obs tables — the HBM stream that bounds the

@@ -12,7 +12,7 @@ callers pass a meaningful one. A well-matched textured patch lands around
 0.3-1.0, a decorrelated one an order of magnitude higher.)
 
 Each grid scan is one vmapped extract+SAD over all candidate offsets —
-batched, fixed-shape, TPU-shaped.
+batched and fixed-shape.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ ratio 0.01, 20px min distance; matcher.cpp:125-130) and the 30x30 occupancy
 grid that suppresses new corners near existing matches (matcher.cpp:132-151):
 
 - min-eigenvalue response from a 3x3-windowed structure tensor of Sobel
-  gradients — all convolutions, MXU/VPU friendly
+  gradients — shifted-slice convolutions that fuse elementwise
 - 3x3 non-max suppression, quality thresholding against the global max
 - min-distance enforcement by greedy acceptance in response order over the
   top-K candidates (a short lax.scan), matching OpenCV's behavior
@@ -34,10 +34,10 @@ _BOX3 = _np.ones((3, 3)) / 9.0
 def _conv2(img, k):
     """3x3 correlation, zero-padded SAME, as shifted static slices.
 
-    A single-channel 3x3 conv_general_dilated on a 480x640 image costs
-    ~3.6 ms on TPU (no channel depth for the MXU to reduce over — the five
-    detector convs were 18 ms per keyframe, trace-measured); nine shifted
-    adds fuse into a handful of VPU passes. ``k`` is a host-side constant.
+    A single-channel conv_general_dilated has no channel depth to reduce
+    over (on the GPU it measured 3.6x slower than shifted slices for the
+    pyramid's 5-tap blur, PERF.md); nine shifted adds fuse into one
+    elementwise pass. ``k`` is a host-side constant.
     """
     H, W = img.shape
     x = jnp.pad(img, 1)
@@ -89,11 +89,10 @@ def detect(img, max_corners: int = 120, quality: float = 0.01,
     peak = (r >= rmax) & (r > thresh)
     score = jnp.where(peak, r, -jnp.inf)
 
-    # top-K candidates by response. approx_max_k uses the TPU's hardware
-    # partial-reduce (a full top_k lowers to a 307k-element stable SORT,
-    # ~380 us per keyframe); recall ~0.95 on the tail only perturbs
-    # candidates far below the acceptance cutoff. Other backends lower it
-    # exactly.
+    # top-K candidates by response. On the GPU (and the CPU) approx_max_k
+    # lowers to an exact top-k, so the candidate set is exact there; the
+    # approximate form is allowed because recall ~0.95 on the tail only
+    # perturbs candidates far below the acceptance cutoff.
     flat = score.reshape(-1)
     vals, idx = lax.approx_max_k(flat, candidates)
     cy = (idx // w).astype(jnp.float32)
@@ -103,13 +102,12 @@ def detect(img, max_corners: int = 120, quality: float = 0.01,
 
     # greedy min-distance acceptance in response order. The clash matrix
     # is precomputed so each of the `candidates` sequential steps is two
-    # [K]-vector ops and no gather/scatter (the slot-scatter body cost
-    # ~0.9 ms per keyframe). The scan processes candidates in blocks of 8
+    # [K]-vector ops and no gather/scatter. The scan processes candidates
+    # in blocks of 8
     # with the greedy walk UNROLLED inside each block (row i still checks
     # the acc updated by rows < i — bit-identical to the row-at-a-time
-    # scan): the body ops are tiny [K]-vector ANDs, so the 512-iteration
-    # while loop was latency-bound on loop machinery (~300 us/frame at
-    # keyframe cadence, trace r4 while.313); 64 blocked iterations cut
+    # scan): the body ops are tiny [K]-vector ANDs, so a 512-iteration
+    # while loop is bound by loop machinery; 64 blocked iterations cut
     # exactly that overhead.
     md2 = min_distance * min_distance
     d2 = jnp.sum((cand[:, None, :] - cand[None, :, :]) ** 2, axis=-1)

@@ -13,9 +13,9 @@ import jax.numpy as jnp
 
 from slam_robot_tpu.ops import quaternion as quat
 
-# These are 3x3 products feeding outlier thresholds at 1e-3 scale; the TPU's
-# default bf16 matmul is not accurate enough (measured ~3e-4 residual noise
-# on true correspondences), so pin full f32.
+# These are 3x3 products feeding outlier thresholds at 1e-3 scale; a
+# reduced-precision default matmul (TF32 on the GPU) is not accurate
+# enough, so pin full f32.
 _HI = jax.lax.Precision.HIGHEST
 
 

@@ -1,6 +1,6 @@
-"""Pallas TPU kernels for hot image ops.
+"""Hand-written Pallas kernels for the GPU (through Triton).
 
-Opt-in implementations of pipeline stages where hand control over
-VMEM/fusion beats XLA's default lowering. Each kernel has an interpret-mode
-test and an XLA-parity test; callers select them explicitly.
+Each kernel sits beside a plain-jnp reference with the same semantics;
+the CPU tests run the kernel in interpret mode against that reference, and
+the card-only tests (``pytest -m gpu``) compare the compiled kernel.
 """

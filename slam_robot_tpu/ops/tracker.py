@@ -20,7 +20,7 @@ Semantics preserved from Track/TrackFeature (hessian.h:185-264):
 - forward/backward verification with a 0.3px round-trip gate happens in the
   matcher (matcher.cpp:173-206) via ``track_bidirectional``
 
-TPU shape: pyramids are FlatPyramid ([L, Hp, Wp] with per-level true
+Fixed shapes: pyramids are FlatPyramid ([L, Hp, Wp] with per-level true
 sizes), so the level cascade is one ``lax.fori_loop`` whose body is traced
 once — the level index, image, and patch are all dynamic. All functions
 are single-feature; the matcher vmaps them over feature slots.

@@ -24,6 +24,10 @@ import jax.numpy as jnp
 
 from slam_robot_tpu.ops import ba, projection as proj, quaternion as quat
 
+# full f32 for geometry: a reduced-precision default (TF32 on the GPU)
+# would quantize residuals and Jacobians
+_HI = jax.lax.Precision.HIGHEST
+
 
 def _point_normal_eqs(frame_quat, frame_trans, frame_cam, cam_k, point_loc,
                       obs_frame, obs_point, obs_px, obs_ok, c: float,
@@ -51,9 +55,11 @@ def _point_normal_eqs(frame_quat, frame_trans, frame_cam, cam_k, point_loc,
     # closed-form step has no LM accept/reject to contain it)
     jp = jp[..., :3] * use[:, None, None]
     C = jnp.zeros((P_, 3, 3)).at[p].add(
-        jnp.einsum("oia,oib,o->oab", jp, jp, w), mode="drop")
+        jnp.einsum("oia,oib,o->oab", jp, jp, w, precision=_HI), mode="drop")
     b = jnp.zeros((P_, 3)).at[p].add(
-        -jnp.einsum("oia,oi->oa", jp, w[:, None] * jnp.where(use[:, None], r, 0.0)),
+        -jnp.einsum("oia,oi->oa", jp,
+                    w[:, None] * jnp.where(use[:, None], r, 0.0),
+                    precision=_HI),
         mode="drop")
     return C, b
 
@@ -93,7 +99,8 @@ def solve_shared_map(
             jnp.einsum("pii->p", C)[:, None, None] / 3.0, 1e-6
         ) + 1e-8 * jnp.eye(3)
         seen = jnp.einsum("pii->p", C) > 0
-        dp = jnp.einsum("pab,pb->pa", jnp.linalg.inv(C + damp), b)
+        dp = jnp.einsum("pab,pb->pa", jnp.linalg.inv(C + damp), b,
+                        precision=_HI)
         locs = locs.at[:, :3].add(jnp.where(seen[:, None], dp, 0.0))
 
         # (b) per-robot frame solve with points const (uncertainty tiny

@@ -3,11 +3,11 @@
 The heavy part of every BA iteration is per-observation work — residuals,
 Jacobians, and the scatter-add of small blocks into the landmark systems
 and the reduced camera system. That axis is embarrassingly parallel, so the
-TPU-native scaling recipe (scaling-book style) is:
+scaling recipe (scaling-book style) is:
 
     mesh axis 'model' <- observation rows
     replicate         <- frame/point parameters (small)
-    XLA inserts psum  <- the scatter-adds reduce across shards over ICI
+    XLA inserts psum  <- the scatter-adds reduce across shards
 
 ``solve_sharded`` does exactly that with sharding annotations on the jitted
 ba.solve — the SPMD partitioner turns our .at[].add into
@@ -23,6 +23,10 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from slam_robot_tpu.ops import ba
+
+# full f32 for geometry: a reduced-precision default (TF32 on the GPU)
+# would quantize residuals and Jacobians
+_HI = jax.lax.Precision.HIGHEST
 
 
 def solve_sharded(
@@ -67,13 +71,13 @@ def assemble_partials(mesh: Mesh, obs_r, obs_w, obs_jf, obs_jp,
 
     def local(r, w, jf, jp, pidx, slot):
         hff = jnp.zeros((n_slots + 1, 6, 6)).at[slot].add(
-            jnp.einsum("oia,oib,o->oab", jf, jf, w), mode="drop")[:n_slots]
+            jnp.einsum("oia,oib,o->oab", jf, jf, w, precision=_HI), mode="drop")[:n_slots]
         bf = jnp.zeros((n_slots + 1, 6)).at[slot].add(
-            -jnp.einsum("oia,oi->oa", jf, w[:, None] * r), mode="drop")[:n_slots]
+            -jnp.einsum("oia,oi->oa", jf, w[:, None] * r, precision=_HI), mode="drop")[:n_slots]
         c = jnp.zeros((n_points, 4, 4)).at[pidx].add(
-            jnp.einsum("oia,oib,o->oab", jp, jp, w), mode="drop")
+            jnp.einsum("oia,oib,o->oab", jp, jp, w, precision=_HI), mode="drop")
         bp = jnp.zeros((n_points, 4)).at[pidx].add(
-            -jnp.einsum("oia,oi->oa", jp, w[:, None] * r), mode="drop")
+            -jnp.einsum("oia,oi->oa", jp, w[:, None] * r, precision=_HI), mode="drop")
         return (
             jax.lax.psum(hff, obs_axis),
             jax.lax.psum(bf, obs_axis),

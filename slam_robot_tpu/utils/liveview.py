@@ -1,6 +1,6 @@
 """Interactive live view: the reference's GUI loop analog, served over
 HTTP (main.cpp:609-638 draws the debug overlay into an OpenCV window and
-polls keys; a headless TPU host has no X server, so the rebuild streams
+polls keys; a headless GPU host has no X server, so the rebuild streams
 the same DrawDebug overlay as MJPEG to any browser instead).
 
 Design: the SLAM loop publishes (overlay, status) at its own cadence;

@@ -4,7 +4,7 @@ import numpy as np
 
 from slam_robot_tpu.ops import brute, klt, patch as patch_ops, pyramid as pyr, tracker
 
-from tests.test_tracker import make_texture, shift_image  # reuse fixtures
+from test_tracker import make_texture, shift_image  # reuse fixtures
 
 WEIGHT = patch_ops.radial_mask(13)
 
@@ -66,7 +66,7 @@ def test_matcher_with_klt_tracker(rng):
     import dataclasses
 
     from slam_robot_tpu.models import localmap as lm, matcher
-    from tests.test_matcher import CFG, fresh, texture, shift
+    from test_matcher import CFG, fresh, texture, shift
 
     cfg = dataclasses.replace(CFG, tracker_kind="klt")
     ms, s = fresh()

@@ -345,7 +345,7 @@ def test_marquardt_policy_converges():
     slam.cpp:482-521's actual Ceres behavior) must solve the same windows
     to the same quality as the classic fixed-factor policy — typically in
     fewer iterations (the classic policy's reject thrash was ~15 of 20
-    iterations on the bench fast window, trace r4)."""
+    iterations on the bench fast window)."""
     import dataclasses
 
     scene = synthetic.build_scene(CFG, n_frames=6, n_points=30,

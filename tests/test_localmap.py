@@ -324,7 +324,7 @@ def test_obs_err_valid_kills_sentinel_aliasing():
     """A stored error exactly equal to its own observed pixel — or exactly
     (0,0) — is a legitimate value and must be COUNTED by mean_obs_error,
     because the explicit obs_err_valid bit (written by reproject) is the
-    only exclusion criterion (VERDICT r4 item 7; no value aliasing)."""
+    only exclusion criterion."""
     scene = synthetic.build_scene(CFG, n_frames=4, n_points=10)
     s, _ = lm.reproject(scene.state)
     no = int(s.n_obs)

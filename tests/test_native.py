@@ -43,8 +43,16 @@ def test_grey_conversion_full_frame(rng):
     assert 0.0 <= g.min() and g.max() <= 1.0
 
 
-@pytest.mark.skipif(not native.available(), reason="native lib not built")
-def test_frame_ring_prefetch(rng):
+@pytest.fixture
+def native_lib():
+    """The built native library (built from source at first use); skips
+    when no compiler could build it."""
+    if not native.available():
+        pytest.skip("native lib not built (make -C native)")
+    return native.load()
+
+
+def test_frame_ring_prefetch(rng, native_lib):
     frames = [rng.uniform(size=(8, 10)).astype(np.float32) for _ in range(5)]
     it = iter(frames)
 
@@ -64,6 +72,5 @@ def test_frame_ring_prefetch(rng):
         np.testing.assert_array_equal(frame, expect)
 
 
-@pytest.mark.skipif(not native.available(), reason="native lib not built")
-def test_native_lib_loaded():
-    assert native.load() is not None
+def test_native_lib_loaded(native_lib):
+    assert native_lib is not None

@@ -5,7 +5,7 @@ reference is unbuildable in this container, so golden trajectories stand in
 within 1%' against ground truth per sequence.
 
 Gates scale with path length (max(1.5mm, 1% of path)) so short paths can't
-hide >1% regressions behind an absolute gate (VERDICT r2 item 5c)."""
+hide >1% regressions behind an absolute gate."""
 
 import json
 import os

@@ -99,7 +99,7 @@ def test_checked_step_flags_nan_input():
 
 
 def test_window_cache_closed_loop_bit_identical():
-    """bwd_window_cache must be semantics-NEUTRAL (VERDICT r2 item 2): a
+    """bwd_window_cache must be semantics-NEUTRAL: a
     closed-loop run with the cache on produces the bit-identical trajectory,
     keyframe cadence and match counts as with it off. Round 2 traded ATE
     for the cache because keyframe-time reference patches were sampled from
@@ -214,7 +214,7 @@ def test_step_live_matches_step():
     np.testing.assert_allclose(
         p[ix["mean_reproj_err"]], float(m["mean_reproj_err"]), rtol=1e-5)
     assert int(p[ix["n_points"]]) == int(m["n_points"])
-    # the safety counters ride the packed row (VERDICT r4 item 4)
+    # the safety counters ride the packed row
     for k in ("fast_obs_dropped", "slow_obs_dropped",
               "reproject_obs_dropped"):
         assert int(p[ix[k]]) == int(m[k])

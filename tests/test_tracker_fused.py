@@ -4,13 +4,14 @@ the autodiff tracker (ops/tracker.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from slam_robot_tpu.ops import patch as patch_ops
 from slam_robot_tpu.ops import pyramid as pyr
 from slam_robot_tpu.ops import tracker, tracker_fused
 from slam_robot_tpu.ops.pallas import newton
 
-from tests.test_tracker import make_texture, shift_image
+from test_tracker import make_texture, shift_image
 
 WEIGHT = patch_ops.radial_mask(13)
 ITERS = 6
@@ -127,20 +128,38 @@ def test_bidirectional_parity(rng):
     assert np.asarray(got_ok).sum() > 6  # the scene is trackable
 
 
-def test_kernel_interpret_matches_xla(rng):
-    win = jnp.asarray(rng.uniform(0.1, 0.9, size=(8, 32, 32)).astype(np.float32))
-    ref = jnp.asarray(rng.uniform(0.1, 0.9, size=(8, 13, 13)).astype(np.float32))
-    pos0 = jnp.asarray(rng.uniform(10.0, 14.0, size=(8, 2)).astype(np.float32))
-    org = jnp.zeros((8, 2), jnp.float32)
-    rv = jnp.ones((8, 13, 13), jnp.float32)
+@pytest.mark.parametrize("F", [5, 32, 256])
+def test_kernel_interpret_matches_xla(rng, F):
+    """The Triton Newton kernel (in the Pallas interpreter) against the
+    plain XLA sweep: one program per lane at any lane count, inactive
+    lanes untouched, windows offset from the level origin."""
+    win = jnp.asarray(rng.uniform(0.1, 0.9, size=(F, 32, 32)).astype(np.float32))
+    ref = jnp.asarray(rng.uniform(0.1, 0.9, size=(F, 13, 13)).astype(np.float32))
+    pos0 = jnp.asarray(rng.uniform(4.0, 30.0, size=(F, 2)).astype(np.float32))
+    org = jnp.asarray(rng.integers(-8, 4, size=(F, 2)).astype(np.float32))
+    rv = jnp.asarray(rng.uniform(size=(F, 13, 13)) > 0.1, jnp.float32)
+    active = jnp.asarray(rng.uniform(size=F) > 0.2, jnp.float32)
     args = (win, pos0, org, ref, rv, jnp.mean(ref, axis=(1, 2)),
-            jnp.mean(ref * ref, axis=(1, 2)), jnp.ones((8,)), WEIGHT,
-            jnp.full((8, 2), 32.0))
-    kw = dict(max_iters=3)
+            jnp.mean(ref * ref, axis=(1, 2)), active, WEIGHT,
+            jnp.full((F, 2), 30.0))
+    kw = dict(max_iters=ITERS)
     px, sx = newton.newton_level(*args, backend="xla", **kw)
     pi, si = newton.newton_level(*args, backend="interpret", **kw)
-    np.testing.assert_allclose(np.asarray(px), np.asarray(pi), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(px), np.asarray(pi), atol=1e-4)
     np.testing.assert_array_equal(np.asarray(sx), np.asarray(si))
+    off = ~np.asarray(active, bool)
+    np.testing.assert_array_equal(np.asarray(pi)[off], np.asarray(pos0)[off])
+
+
+def test_kernel_interpret_matches_xla_on_tracker_windows():
+    """Kernel vs XLA sweep on windows and reference patches cut by the
+    tracker's own gathers from a textured frame pair, every level."""
+    from slam_robot_tpu.utils import kernel_check as kc
+
+    rows = kc.newton_errors("interpret", h=120, w=160, depth=4, lanes=32)
+    assert len(rows) == 4
+    for lvl, dims, err, n_over, n_status in rows:
+        assert n_over == 0 and n_status == 0, (lvl, dims, err)
 
 
 def test_packed_cache_path_matches_patch_path(rng):
@@ -246,8 +265,7 @@ def test_patch_stacks_from_windows_bit_identical():
 
 def test_gather_windows_bit_identical_to_dynamic_slice():
     """_gather_windows' row-gather + one-hot column select is a pure
-    relayout of a vmapped dynamic_slice (the r4 trace's largest op family)
-    — it must return bit-identical windows, or the keyframe cadence forks
+    relayout of a vmapped dynamic_slice — it must return bit-identical windows, or the keyframe cadence forks
     chaotically (PERF.md finding 15)."""
     import numpy as np
 

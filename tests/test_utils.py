@@ -264,20 +264,22 @@ def test_liveview_serves_stream_and_status():
         view.stop()
 
 
-def test_batched_fetchpool_orders_and_flushes():
-    """BatchedFetchPool: per-frame telemetry stacked k-at-a-time on device,
-    fetched as one round trip, delivered per-frame in submission order,
-    with the partial tail flushed on join."""
+def test_fetchpool_delivers_in_submission_order():
+    """FetchPool: every submitted value comes back once, with its meta, in
+    submission order, whether collected by drain() or join()."""
     import jax.numpy as jnp
     import numpy as np
 
-    from slam_robot_tpu.utils.fetchpool import BatchedFetchPool
+    from slam_robot_tpu.utils.fetchpool import FetchPool
 
-    pool = BatchedFetchPool(k=4, workers=2)
-    n = 10  # 2 full batches + a partial tail of 2
+    pool = FetchPool(workers=2)
+    n = 10
+    got = []
     for i in range(n):
         pool.submit(jnp.full((8,), float(i)), meta=i)
-    got = pool.join()
+        if i == 4:
+            got.extend(pool.drain())
+    got.extend(pool.join())
     pool.close()
     assert [m for m, _ in got] == list(range(n))
     for i, (_, row) in enumerate(got):

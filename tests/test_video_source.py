@@ -53,7 +53,7 @@ def test_video_source_reads_frames(tmp_path):
 
 
 def test_duo_video_replay_cli(tmp_path):
-    """run_replay --video a b works end-to-end (VERDICT item 7)."""
+    """run_replay --video a b works end-to-end."""
     paths = write_videos(tmp_path, n_pairs=3)
     out = subprocess.run(
         [sys.executable, "-m", "slam_robot_tpu.run_replay",

@@ -29,7 +29,9 @@ def main() -> int:
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from slam_robot_tpu.utils import cachedir
+
+    cachedir.configure()
 
     import jax.numpy as jnp
     import numpy as np

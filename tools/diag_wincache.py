@@ -1,4 +1,4 @@
-"""Diagnose the bwd_window_cache keyframe-cadence shift (VERDICT r2 item 2).
+"""Diagnose the bwd_window_cache keyframe-cadence shift.
 
 Round-2 controlled measurement: cache off = 15 keyframes / ATE 1.01%,
 cache on = 2 keyframes / 1.29% on the same 64-frame bench continuation.
@@ -35,9 +35,9 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from slam_robot_tpu.utils.cachedir import jax_cache_dir
-    jax.config.update("jax_compilation_cache_dir", jax_cache_dir("cpu"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from slam_robot_tpu.utils import cachedir
+
+    cachedir.configure("cpu")
     import jax.numpy as jnp
     import numpy as np
 

@@ -18,8 +18,7 @@ up as ATE drift; when a built reference becomes available, point --golden
 at a dump of its /tmp/z trajectory instead (utils/dump.py reads/writes
 that format).
 
-Sequences (VERDICT r2 item 5 — the regimes where cadence-sensitive caches
-bite):
+Sequences:
   forward_yaw          24f 320x240, gentle forward+yaw (the original golden)
   rotation_heavy       40f 640x480 (production res), 5x yaw rate: stored
                        views age fast, retry ladder and keyframe cadence
@@ -140,9 +139,9 @@ def run_sequence(name: str = "forward_yaw", seed: int | None = None):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from slam_robot_tpu.utils.cachedir import jax_cache_dir
-    jax.config.update("jax_compilation_cache_dir", jax_cache_dir("cpu"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from slam_robot_tpu.utils import cachedir
+
+    cachedir.configure("cpu", 5.0)
 
     import jax.numpy as jnp
     import numpy as np
@@ -166,7 +165,7 @@ def run_sequence(name: str = "forward_yaw", seed: int | None = None):
     true = np.asarray(src.true_trans[: seq_kw["n_frames"]])
 
     # match-quality stat alongside the trajectory: a run can stay inside
-    # the ATE gate while its matches degrade (VERDICT r3 item 7) — the
+    # the ATE gate while its matches degrade — the
     # enabled-obs median reprojection error catches that axis
     m = ps.map
     no = int(m.n_obs)
@@ -301,7 +300,7 @@ def _git_commit() -> str:
 
 def regen(name: str) -> bool:
     """Regenerate one golden fixture; refuses if the generating build fails
-    its own truth gate (de-circularization, VERDICT r3 item 7) — every
+    its own truth gate (de-circularization) — every
     committed golden is evidence the generating build met the bar."""
     import numpy as np
 

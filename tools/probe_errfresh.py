@@ -36,8 +36,9 @@ def main():
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from slam_robot_tpu.utils import cachedir
+
+    cachedir.configure()
 
     import jax.numpy as jnp
     import numpy as np

@@ -36,9 +36,9 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from slam_robot_tpu.utils.cachedir import jax_cache_dir
-    jax.config.update("jax_compilation_cache_dir", jax_cache_dir("cpu"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from slam_robot_tpu.utils import cachedir
+
+    cachedir.configure("cpu", 5.0)
 
     import jax.numpy as jnp
     import numpy as np

@@ -1,10 +1,10 @@
-"""On-chip bit-identity check: keyframe refpack via window re-reads
+"""On-card bit-identity check: keyframe refpack via window re-reads
 (tracker_fused.get_patch_stacks_from_windows) vs per-lane plane extraction
 (get_patch_stacks). The one-hot selection matmuls must be EXACT under
-Precision.HIGHEST on the MXU (each output = 1.0*pixel + exact zeros) —
-any fp-level difference in reference patches forks the keyframe cadence
-(PERF.md finding 15), so this must hold on the real chip, not just
-XLA:CPU. Also times both at the keyframe-branch shape.
+Precision.HIGHEST (each output = 1.0*pixel + exact zeros) — any fp-level
+difference in reference patches forks the keyframe cadence (PERF.md), so
+this must hold on the card, not just XLA:CPU. Also times both at the
+keyframe-branch shape.
 """
 
 import os
@@ -17,8 +17,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from slam_robot_tpu.utils import cachedir
+
+    cachedir.configure()
     import jax.numpy as jnp
     import numpy as np
 

@@ -1,6 +1,6 @@
-"""Seed-1 match-quality diagnosis (VERDICT r4 item 1 / PERF.md finding 33).
+"""Seed-1 match-quality diagnosis.
 
-The shipped config's 3-seed on-chip ATE campaign reads 0.76 / 3.60 / 1.45 %
+The shipped config's 3-seed ATE campaign read 0.76 / 3.60 / 1.45 %
 — seed 1 is a hard texture draw in EVERY config (~48 mean matches ->
 keyframe storms, 29 kf in the 64-frame scan). The diagnosis named match
 QUALITY, not solver policy. This probe decomposes the per-frame match
@@ -37,10 +37,9 @@ def main():
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    from slam_robot_tpu.utils.cachedir import jax_cache_dir
-    jax.config.update("jax_compilation_cache_dir",
-                      jax_cache_dir(args.platform))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from slam_robot_tpu.utils import cachedir
+
+    cachedir.configure(args.platform)
 
     import jax.numpy as jnp
     import numpy as np

@@ -1,4 +1,8 @@
-"""Fused-tracker stage timing on the real chip: kernel, gathers, stacks."""
+"""Fused-tracker stage timing on the card: Newton sweep (kernel and plain
+XLA form), gathers, stacks, full cascades.
+
+    python tools/profile_tracker.py
+"""
 
 import argparse
 import os
@@ -30,8 +34,9 @@ def main():
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from slam_robot_tpu.utils import cachedir
+
+    cachedir.configure()
 
     import functools
 
@@ -66,14 +71,14 @@ def main():
     rm = jnp.mean(ref, axis=(1, 2))
     rs = jnp.mean(ref * ref, axis=(1, 2))
 
-    @jax.jit
-    def kern(win, pos0):
-        return newton.newton_level(
-            win, pos0, org, ref, rv, rm, rs, jnp.ones((F,)), WEIGHT,
-            width=640.0, height=480.0, max_iters=6,
-        )
-
-    print(f"newton_level kernel [F={F}]:   {timeit(kern, win, pos0):8.3f} ms")
+    bounds = jnp.broadcast_to(jnp.asarray([640.0, 480.0]), (F, 2))
+    for backend in sorted({"xla", tracker_fused.default_backend()}):
+        kern = jax.jit(functools.partial(
+            newton.newton_level, org=org, ref=ref, ref_valid=rv,
+            ref_mean=rm, ref_sumsq=rs, active=jnp.ones((F,)), wmask=WEIGHT,
+            bounds=bounds, max_iters=6, backend=backend))
+        print(f"newton_level {backend:6s} [F={F}]: "
+              f"{timeit(kern, win, pos0):8.3f} ms")
 
     # 2. window gather for one level
     @jax.jit

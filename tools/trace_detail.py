@@ -1,5 +1,5 @@
 """Re-parse an existing /tmp/jaxtrace xplane into detailed op rows
-(occurrences, op text, source info) without touching the TPU.
+(occurrences, op text, source info) without touching the device.
 
     python tools/trace_detail.py [--match fusion.7] [--top 30]
 """
